@@ -2,7 +2,7 @@
 Aila-Laine-Karras, Williams, Williams branchless, Eisemann, Pluecker — all
 cross-checked against each other and timed; 100k rays x 5k AABBs default).
 
-On TPU every variant is branch-free vector math, so the comparison is about
+Under XLA every variant is branch-free vector math, so the comparison is about
 op count and fusion, not divergence. Run:
     python benchmarks/aabb_intersect.py [n_rays] [n_boxes]
 """

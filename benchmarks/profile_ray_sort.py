@@ -4,8 +4,9 @@ tests/profile_one_to_many_rays_gadget/profile_one_to_many_rays_gadget.cu:
 the reference notes NoSort is often fastest on Hilbert-ordered Gadget data
 because the input is already coherent).
 
-On the TPU build ray coherence determines tile-AABB tightness and hence
-broadphase selectivity — the sort is load-bearing, not just cache-friendly.
+For the fused trace kernel ray coherence determines tile-AABB tightness and
+hence broadphase selectivity — the sort is load-bearing, not just
+cache-friendly.
 
 Usage: python benchmarks/profile_ray_sort.py [n_particles] [n_rays]
 """
@@ -24,11 +25,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from bench import make_clustered_particles
-    from grace_tpu.build.sph import build_sph_tree
-    from grace_tpu.core.types import RaySortType
-    from grace_tpu.rays.gen import one_to_many_rays, spatial_sort_rays
-    from grace_tpu.trace.pallas_kernel import pallas_trace_sph
+    from grace_jax.build.sph import build_sph_tree
+    from grace_jax.core.types import RaySortType
+    from grace_jax.io.synthetic import make_clustered_particles
+    from grace_jax.rays.gen import one_to_many_rays, spatial_sort_rays
+    from grace_jax.trace.pallas_kernel import pallas_trace_sph
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 1 << 19
     n_rays = int(sys.argv[2]) if len(sys.argv) > 2 else 1 << 16
@@ -51,8 +52,7 @@ def main():
     for name, st in strategies.items():
         def run():
             rays = one_to_many_rays(origin, jnp.asarray(targets), st)
-            v, ovf = pallas_trace_sph(rays, sorted_spheres, tree, tile=128,
-                                      max_chunks=4096, mode="cumulative")
+            v, ovf = pallas_trace_sph(rays, sorted_spheres, max_chunks=4096)
             return float(jnp.sum(v)), bool(jnp.any(ovf))
 
         total, ovf = run()  # warm-up
@@ -63,12 +63,12 @@ def main():
         print(f"{name}_ms: {dt * 1e3:.2f}  rays_per_s: {n_rays / dt:.3e}  "
               f"overflow: {ovf}")
 
-    # The TPU-native recommendation: spatial (segment-midpoint Morton) sort.
+    # Spatial (segment-midpoint Morton) sort: the order the fused kernel's
+    # tile broadphase wants.
     def run_spatial():
         rays = one_to_many_rays(origin, jnp.asarray(targets), RaySortType.NoSort)
         rays_s, _, _ = spatial_sort_rays(rays)
-        v, ovf = pallas_trace_sph(rays_s, sorted_spheres, tree, tile=128,
-                                  max_chunks=4096, mode="cumulative")
+        v, ovf = pallas_trace_sph(rays_s, sorted_spheres, max_chunks=4096)
         return float(jnp.sum(v)), bool(jnp.any(ovf))
 
     run_spatial()

@@ -26,12 +26,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from bench import make_clustered_particles
-    from grace_tpu.build.sph import build_sph_tree
-    from grace_tpu.ops.segops import sort_by_distance
-    from grace_tpu.rays.gen import plane_parallel_random_rays, spatial_sort_rays
-    from grace_tpu.trace.pallas_kernel import pallas_trace_sph
-    from grace_tpu.trace.sph import trace_sph
+    from grace_jax.build.sph import build_sph_tree
+    from grace_jax.io.synthetic import make_clustered_particles
+    from grace_jax.ops.segops import sort_by_distance
+    from grace_jax.rays.gen import plane_parallel_random_rays, spatial_sort_rays
+    from grace_jax.trace.pallas_kernel import pallas_trace_sph
+    from grace_jax.trace.sph import trace_sph
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 1 << 20
     n_rays = int(sys.argv[2]) if len(sys.argv) > 2 else 512 * 512
@@ -57,13 +57,13 @@ def main():
     rays_s, _, _ = jax.jit(spatial_sort_rays)(rays)
 
     def hitcount():
-        v, _ = pallas_trace_sph(rays_s, sorted_spheres, tree, tile=128,
-                                max_chunks=4096, mode="hitcount")
+        v, _ = pallas_trace_sph(rays_s, sorted_spheres, max_chunks=4096,
+                                mode="hitcount")
         return np.array(v)
 
     def cumulative():
-        v, _ = pallas_trace_sph(rays_s, sorted_spheres, tree, tile=128,
-                                max_chunks=4096, mode="cumulative")
+        v, _ = pallas_trace_sph(rays_s, sorted_spheres, max_chunks=4096,
+                                mode="cumulative")
         return np.array(v)
 
     t_hc = timeit(hitcount, iters)
@@ -72,44 +72,26 @@ def main():
     counts = hitcount()
     total = int(counts.sum())
 
-    # Full per-hit trace: the fused single-pass record kernel at FULL scale
-    # (ref trace_sph two-pass, trace_sph.cuh:111-168), per-ray capacity from
-    # the observed maximum rounded up to lanes.
-    from grace_tpu.trace.pallas_records import (
-        pallas_trace_sph_records,
-        sort_records_by_distance,
-    )
-
-    cap = ((int(counts.max()) + 127) // 128) * 128
+    # Full per-hit trace (ref trace_sph two-pass, trace_sph.cuh:111-168)
+    # through the XLA engine, then the segmented distance sort
+    # (ref sort_by_distance, sort.cuh:100-131).
+    full_trace = jax.jit(trace_sph, static_argnums=3)
+    cap = total + 1
 
     def full():
-        rec = pallas_trace_sph_records(rays_s, sorted_spheres,
-                                       per_ray_capacity=cap, tile=64)
-        return float(jnp.sum(rec.counts))
+        return int(full_trace(rays_s, sorted_spheres, tree, cap).total_hits)
 
     t_full = timeit(full, iters)
+    res = full_trace(rays_s, sorted_spheres, tree, cap)
+    dist_sort = jax.jit(sort_by_distance)
 
-    def full_sorted():
-        rec = pallas_trace_sph_records(rays_s, sorted_spheres,
-                                       per_ray_capacity=cap, tile=64)
-        srt = sort_records_by_distance(rec)
-        return float(jnp.sum(srt.distances[:, 0]))
+    def sort():
+        out = dist_sort(res.distances, res.offsets, res.indices,
+                        res.integrals, total_hits=res.total_hits)
+        return jax.block_until_ready(out[0])
 
-    t_fs = timeit(full_sorted, iters)
-
-    # Flat-layout distance sort on a slice via the XLA engine, for parity
-    # with the reference's sgpu-backed sort_by_distance (sort.cuh:100-131).
-    small = jax.tree.map(lambda x: x[: 8192], rays_s)
-    res_small = trace_sph(small, sorted_spheres, tree,
-                          capacity=int(counts[:8192].sum()) + 1024)
-
-    def dist_sort():
-        out = sort_by_distance(res_small.distances, res_small.offsets,
-                               res_small.indices, res_small.integrals,
-                               total_hits=res_small.total_hits)
-        return np.array(out[0])
-
-    t_ds = timeit(dist_sort, iters)
+    t_ds = timeit(sort, iters)
+    t_fs = t_full + t_ds
 
     print(f"n_particles: {n}")
     print(f"n_rays: {n_rays}")
@@ -120,7 +102,7 @@ def main():
     print(f"full_trace_ms: {t_full:.2f}")
     print(f"full_trace_sorted_ms: {t_fs:.2f}")
     print(f"full_sorted_over_cumulative: {t_fs / t_cum:.2f}")
-    print(f"sort_by_distance_ms_8k_rays: {t_ds:.2f}")
+    print(f"sort_by_distance_ms: {t_ds:.2f}")
     print(f"total_hits: {total}")
     print(f"rays_per_s_cumulative: {n_rays / (t_cum / 1e3):.3e}")
     print(f"rays_per_s_full_sorted: {n_rays / (t_fs / 1e3):.3e}")

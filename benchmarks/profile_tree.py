@@ -32,13 +32,13 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from grace_tpu.build.lbvh import build_lbvh
-    from grace_tpu.build.sph import (
+    from grace_jax.build.lbvh import build_lbvh
+    from grace_jax.build.sph import (
         euclidean_deltas_sph,
         morton_keys_sph,
         sort_by_morton,
     )
-    from grace_tpu.ops.primitives import SPHERE
+    from grace_jax.ops.primitives import SPHERE
 
     lo = int(sys.argv[1]) if len(sys.argv) > 1 else 20
     hi = int(sys.argv[2]) if len(sys.argv) > 2 else 23

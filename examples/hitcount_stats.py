@@ -1,5 +1,5 @@
 """Hit-count statistics dump — the reference's `hitcounts` diagnostic binary
-(ref: tests/hitcounts/hitcounts.cu:21-107) re-built on the TPU pipeline:
+(ref: tests/hitcounts/hitcounts.cu:21-107) re-built on this pipeline:
 random spheres in the unit box, uniform isotropic rays from the box centre,
 BVH build + hit-count trace, then total/max/min statistics and an optional
 text dump of spheres, rays, and per-ray counts.
@@ -29,10 +29,10 @@ def main(argv):
     print(f"Number of particles:    {n}")
     print(f"Max particles per leaf: {max_per_leaf}\n")
 
-    from grace_tpu.build.sph import build_sph_tree
-    from grace_tpu.core.types import make_spheres
-    from grace_tpu.rays.gen import uniform_random_rays
-    from grace_tpu.trace.sph import trace_hitcounts_sph
+    from grace_jax.build.sph import build_sph_tree
+    from grace_jax.core.types import make_spheres
+    from grace_jax.rays.gen import uniform_random_rays
+    from grace_jax.trace.sph import trace_hitcounts_sph
 
     # Random spheres in [0, 1), radii in [0, 0.1) — hitcounts.cu's scene.
     rng = np.random.default_rng(0)

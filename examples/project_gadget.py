@@ -21,7 +21,7 @@ import numpy as np
 
 
 def synthetic_snapshot(path, n=200_000, seed=0):
-    from grace_tpu.io.gadget import write_gadget_gas
+    from grace_jax.io.gadget import write_gadget_gas
 
     rng = np.random.default_rng(seed)
     n_clumps = 64
@@ -41,11 +41,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from grace_tpu.build.sph import build_sph_tree
-    from grace_tpu.io.gadget import read_gadget_gas
-    from grace_tpu.io.images import to_colormap, write_bmp
-    from grace_tpu.rays.gen import plane_parallel_random_rays
-    from grace_tpu.trace.sph import trace_cumulative_sph
+    from grace_jax.build.sph import build_sph_tree
+    from grace_jax.io.gadget import read_gadget_gas
+    from grace_jax.io.images import to_colormap, write_bmp
+    from grace_jax.rays.gen import plane_parallel_random_rays
+    from grace_jax.trace.sph import trace_cumulative_sph
 
     snapshot = sys.argv[1] if len(sys.argv) > 1 else synthetic_snapshot("/tmp/grace_synth.gdt")
     res = int(sys.argv[2]) if len(sys.argv) > 2 else 512

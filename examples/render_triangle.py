@@ -37,14 +37,14 @@ def torus_mesh(n_u=64, n_v=32, R=1.0, r=0.4):
 
 
 def main():
-    from grace_tpu.io.images import to_colormap, write_bmp
-    from grace_tpu.models.triangle import render_triangles
+    from grace_jax.io.images import to_colormap, write_bmp
+    from grace_jax.models.triangle import render_triangles
 
     ply = sys.argv[1] if len(sys.argv) > 1 and sys.argv[1].endswith(".ply") else None
     off = 1 if ply else 0
     res = int(sys.argv[1 + off]) if len(sys.argv) > 1 + off else 512
     if ply:
-        from grace_tpu.io.ply import read_ply
+        from grace_jax.io.ply import read_ply
 
         verts, faces = read_ply(ply)
         tris = verts[faces]

@@ -1,19 +1,19 @@
-"""Differentiable splat training demo: fit particles to a target image.
+"""Differentiable column-density training demo: fit particles to a target
+image.
 
 The capability the CUDA reference does not have: its flagship workload
 (column-density projection, ref tests/project_gadget/project_gadget.cu)
 made differentiable end to end. A randomly initialized particle cloud is
 optimized (positions, smoothing lengths, weights) to reproduce a target
-column-density image rendered from a hidden scene — both the forward and
-the backward are MXU Pallas kernels (grace_tpu.trace.splat_grad), with no
-per-step instance sort and no gradient capacities.
+column-density image rendered from a hidden scene, through
+``render_column_density`` (grace_jax.trace.render: BVH hit records, then
+an autodiff-friendly gather + kernel evaluation + segment sum). The tree is
+rebuilt from the current particles every step.
 
 Usage:
-    python examples/train_splat.py [steps] [--interpret]
+    python examples/train_splat.py [steps] [--small]
 
---interpret runs the Pallas kernels in interpret mode at a tiny scale
-(CPU smoke test); on a real TPU the default is a 64k-particle scene at
-256x256 with ~11 ms/step at bench scale (benchmarks/results/r4_hw_notes.md).
+--small runs a 500-particle, 32x32 scene (a quick check on any backend).
 """
 
 import pathlib
@@ -28,53 +28,46 @@ def main(argv):
     import jax
     import jax.numpy as jnp
     import optax
-    from grace_tpu.build.sph import build_sph_tree
-    from grace_tpu.trace.splat_grad import OrthoCamera, make_splat_trainer
+    from grace_jax.build.sph import build_sph_tree
+    from grace_jax.rays.gen import orthographic_projection_rays
+    from grace_jax.trace.render import render_column_density
 
-    interpret = "--interpret" in argv
+    small = "--small" in argv
     argv = [a for a in argv if not a.startswith("--")]
     steps = int(argv[0]) if argv else 60
 
-    n = 2_000 if interpret else 65_536
-    res = (128, 32) if interpret else (256, 256)
-    cam = OrthoCamera((0.5, 0.5, -2.0), (0.5, 0.5, 0.5), (0.0, 1.0, 0.0),
-                      1.2, 6.0, res[0], res[1])
-    tile_w = 16 if interpret else 32
-
-    rng = np.random.default_rng(0)
+    n = 500 if small else 65_536
+    side = 32 if small else 256
+    capacity = 1 << (16 if small else 24)
+    rays = orthographic_projection_rays(side, side, (0.5, 0.5, -2.0),
+                                        (0.5, 0.5, 0.5), (0.0, 1.0, 0.0),
+                                        1.2, 6.0)
 
     def cloud(seed):
         r = np.random.default_rng(seed)
         pos = (0.25 + 0.5 * r.random((n, 3))).astype(np.float32)
         h = (0.02 + 0.04 * r.random(n)).astype(np.float32)
-        return np.concatenate([pos, h[:, None]], axis=1).astype(np.float32)
+        return jnp.asarray(np.concatenate([pos, h[:, None]], axis=1))
 
-    render = make_splat_trainer(cam, tile_w=tile_w, tile_h=128,
-                                interpret=interpret)
+    def render(spheres, weights):
+        s, tree, perm = build_sph_tree(spheres, 32)
+        return render_column_density(rays, s, tree, capacity,
+                                     weights=weights[perm])
 
-    # Hidden scene -> target image. Morton-sort both clouds (the sort-free
-    # kernels rely on segment locality; see splat_forward_sortfree).
-    hidden = build_sph_tree(jnp.asarray(cloud(7)), 32)[0]
-    target = render(hidden, jnp.ones((n,), jnp.float32))
-
-    spheres = build_sph_tree(jnp.asarray(cloud(1)), 32)[0]
-    weights = jnp.ones((n,), jnp.float32)
-
+    target = jax.jit(render)(cloud(7), jnp.ones((n,), jnp.float32))
     opt = optax.adam(3e-3)
-    state = opt.init((spheres, weights))
+    params = (cloud(1), jnp.ones((n,), jnp.float32))
+    state = opt.init(params)
 
     @jax.jit
     def step(params, state):
         def loss_fn(params):
-            s, w = params
-            img = render(s, w)
-            return jnp.mean((img - target) ** 2)
+            return jnp.mean((render(*params) - target) ** 2)
 
         loss, grads = jax.value_and_grad(loss_fn)(params)
         updates, state = opt.update(grads, state)
         return optax.apply_updates(params, updates), state, loss
 
-    params = (spheres, weights)
     loss0 = None
     for i in range(steps):
         params, state, loss = step(params, state)

@@ -1,4 +1,4 @@
-// grace_tpu native IO: Gadget-2 snapshot reader, PLY triangle-mesh reader,
+// grace_jax native IO: Gadget-2 snapshot reader, PLY triangle-mesh reader,
 // BMP image writer.
 //
 // Native (C ABI, ctypes-loaded) equivalents of the reference's native data

@@ -13,7 +13,7 @@ reference's climbing kernels compute —
     children have reported (ref: albvh.cuh:156-163);
   * big-leaf emission (ref: albvh.cuh:236-295 write_leaves_kernel).
 
-No code is shared with grace_tpu.build — that is the point.
+No code is shared with grace_jax.build — that is the point.
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ def build_reference_tree(d: np.ndarray, max_per_leaf: int):
     """Full two-phase reference build: big leaves + top-tree links.
 
     Returns (leaves, children, root) where children[p] = (left, right) with
-    leaf children encoded as ~leaf_index, matching grace_tpu.core.tree.
+    leaf children encoded as ~leaf_index, matching grace_jax.core.tree.
     """
     leaves = emit_big_leaves(d, max_per_leaf)
     nl = len(leaves)

@@ -5,11 +5,11 @@ per-ray distances non-decreasing and non-negative, counts consistent)."""
 import numpy as np
 import jax
 
-from grace_tpu.build.sph import build_sph_tree
-from grace_tpu.core.types import make_spheres
-from grace_tpu.ops.segops import sort_by_distance
-from grace_tpu.rays.gen import uniform_random_rays
-from grace_tpu.trace.sph import trace_sph
+from grace_jax.build.sph import build_sph_tree
+from grace_jax.core.types import make_spheres
+from grace_jax.ops.segops import sort_by_distance
+from grace_jax.rays.gen import uniform_random_rays
+from grace_jax.trace.sph import trace_sph
 
 
 def test_distance_sort_order(rng):

@@ -13,12 +13,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from grace_tpu.build.sph import build_sph_tree
-from grace_tpu.core.types import make_spheres
-from grace_tpu.io import native
-from grace_tpu.io.gadget import _np_read, read_gadget_gas, write_gadget_gas
-from grace_tpu.rays.gen import plane_parallel_random_rays
-from grace_tpu.trace.sph import trace_cumulative_sph
+from grace_jax.build.sph import build_sph_tree
+from grace_jax.core.types import make_spheres
+from grace_jax.io import native
+from grace_jax.io.gadget import _np_read, read_gadget_gas, write_gadget_gas
+from grace_jax.rays.gen import plane_parallel_random_rays
+from grace_jax.trace.sph import trace_cumulative_sph
 
 TOL = 5e-4  # ref integrate_gadget.cu / integrate.cu gate
 

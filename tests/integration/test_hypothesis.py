@@ -9,7 +9,7 @@ import jax
 import pytest
 from scipy import stats as sstat
 
-from grace_tpu.rays.hypothesis import (
+from grace_jax.rays.hypothesis import (
     DEFAULT_SCALES,
     equivalence_test,
     isotropic_directions,

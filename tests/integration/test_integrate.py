@@ -8,11 +8,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from grace_tpu.build.sph import build_sph_tree
-from grace_tpu.core.types import make_spheres
-from grace_tpu.rays.gen import plane_parallel_random_rays
-from grace_tpu.trace.render import render_column_density
-from grace_tpu.trace.sph import trace_cumulative_sph
+from grace_jax.build.sph import build_sph_tree
+from grace_jax.core.types import make_spheres
+from grace_jax.rays.gen import plane_parallel_random_rays
+from grace_jax.trace.render import render_column_density
+from grace_jax.trace.sph import trace_cumulative_sph
 
 TOL = 5e-4  # ref integrate.cu:53
 
@@ -70,7 +70,7 @@ def test_differentiable_render_matches_cumulative(rng):
 def test_pallas_kernel_passes_physics_gate(rng):
     """The fused kernel's polynomial integral must pass the same 5e-4
     normalization gate as the table path (interpret mode)."""
-    from grace_tpu.trace.pallas_kernel import pallas_trace_sph
+    from grace_jax.trace.pallas_kernel import pallas_trace_sph
 
     spheres = make_spheres(
         np.array([[-0.5, -0.5, -0.5], [0.5, 0.5, 0.5]], np.float32),
@@ -81,7 +81,7 @@ def test_pallas_kernel_passes_physics_gate(rng):
     rays = plane_parallel_random_rays(
         jax.random.key(0), res, res, (-1.0, -1.0, -5.0), (2.0, 0, 0), (0, 2.0, 0),
         length=20.0)
-    vals, ovf = pallas_trace_sph(rays, sorted_spheres, tree, tile=128,
+    vals, ovf = pallas_trace_sph(rays, sorted_spheres, tile=128,
                                  max_chunks=8, interpret=True)
     assert not bool(np.array(ovf).any())
     total = float(jnp.sum(vals)) * (2.0 / res) ** 2

@@ -6,10 +6,10 @@ generators, and MUST be rejected for deliberately anisotropic ones)."""
 import numpy as np
 import jax
 
-from grace_tpu.core.types import Octants
-from grace_tpu.rays.gen import uniform_random_rays, uniform_random_rays_single_octant
-from grace_tpu.rays.healpix import healpix_rays
-from grace_tpu.rays.statistics import (
+from grace_jax.core.types import Octants
+from grace_jax.rays.gen import uniform_random_rays, uniform_random_rays_single_octant
+from grace_jax.rays.healpix import healpix_rays
+from grace_jax.rays.statistics import (
     BERAN_AN_CRIT,
     GINE_FN_CRIT,
     GINE_GN_CRIT,
@@ -66,7 +66,7 @@ def test_antipodal_bimodal_detected_by_gn_not_z():
 
 
 def test_ripley_k_matches_uniform_expectation():
-    from grace_tpu.rays.statistics import ripley_k_sphere, ripley_k_uniform
+    from grace_jax.rays.statistics import ripley_k_sphere, ripley_k_uniform
 
     rays = uniform_random_rays(jax.random.key(5), 3000, (0, 0, 0), 1.0)
     angles = np.array([0.3, 0.8, 1.5708, 2.4], np.float32)

@@ -1,13 +1,13 @@
 """Two-process multi-host test (SURVEY.md section 4 "Multi-node testing").
 
 Spawns 2 REAL processes, each with 4 virtual CPU devices, brings up
-jax.distributed via grace_tpu.parallel.multihost.initialize, builds an
+jax.distributed via grace_jax.parallel.multihost.initialize, builds an
 8-device global ("rays", "space") mesh spanning both processes, runs the
 space-sharded ring training step on globally assembled arrays, and compares
 loss + image against a single-process oracle computed from the same seed.
 
-This is exactly the recipe a TPU pod run uses (initialize() with no args on
-TPU); only the device count and platform differ.
+This is the recipe a multi-host GPU run uses; only the device count and
+platform differ.
 """
 
 import os
@@ -26,7 +26,7 @@ pid = int(sys.argv[1]); nproc = int(sys.argv[2]); port = sys.argv[3]
 
 import jax
 jax.config.update("jax_platforms", "cpu")
-from grace_tpu.parallel import multihost
+from grace_jax.parallel import multihost
 
 multihost.initialize(f"localhost:{port}", nproc, pid)
 assert jax.process_count() == nproc, jax.process_count()
@@ -34,8 +34,8 @@ assert len(jax.devices()) == nproc * 4, len(jax.devices())
 
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
-from grace_tpu.core.types import Rays, make_spheres
-from grace_tpu.parallel.sharding import sharded_train_step
+from grace_jax.core.types import Rays, make_spheres
+from grace_jax.parallel.sharding import sharded_train_step
 
 # Deterministic global problem, identical in every process.
 rng = np.random.default_rng(99)
@@ -130,8 +130,8 @@ def test_two_process_ring_train_step(tmp_path, rng):
     # Single-process oracle on the same deterministic problem.
     import jax
     import jax.numpy as jnp
-    from grace_tpu.core.types import Rays
-    from grace_tpu.parallel.sharding import make_mesh, sharded_train_step
+    from grace_jax.core.types import Rays
+    from grace_jax.parallel.sharding import make_mesh, sharded_train_step
 
     rng99 = np.random.default_rng(99)
     n, r = 128, 64

@@ -1,20 +1,21 @@
-"""Pallas trace path parity tests (interpret mode on CPU).
+"""Fused trace kernel parity tests (Pallas interpreter on CPU).
 
-The fused kernel must reproduce the XLA engine's results exactly for hit
-counts and to polynomial-fit tolerance for integrals; the dense broadphase
-must agree with the lockstep BVH-walk broadphase on which segments a tile
-needs (superset-with-identical-hits semantics is checked end-to-end here).
+The Triton tile kernel must reproduce the XLA engine's results exactly for
+hit counts and to polynomial-fit tolerance for integrals, for every tile
+size, for ray counts that are not a tile multiple, for tiles whose segment
+lists are empty, and for scenes spanning many primitive slabs.
 """
 
 import numpy as np
 import jax
+import jax.numpy as jnp
 import pytest
 
-from grace_tpu.build.sph import build_sph_tree
-from grace_tpu.core.types import make_spheres
-from grace_tpu.rays.gen import plane_parallel_random_rays, spatial_sort_rays, uniform_random_rays
-from grace_tpu.trace.pallas_kernel import pallas_trace_sph
-from grace_tpu.trace.sph import trace_cumulative_sph, trace_hitcounts_sph
+from grace_jax.build.sph import build_sph_tree
+from grace_jax.core.types import Rays, make_spheres
+from grace_jax.rays.gen import plane_parallel_random_rays, spatial_sort_rays, uniform_random_rays
+from grace_jax.trace.pallas_kernel import pad_rays, pallas_trace_sph
+from grace_jax.trace.sph import trace_cumulative_sph, trace_hitcounts_sph
 
 
 def setup(rng, n=3000):
@@ -23,160 +24,134 @@ def setup(rng, n=3000):
     return jax.jit(build_sph_tree, static_argnums=1)(spheres, 16)
 
 
-def test_pallas_hitcounts_match_engine(rng):
+def check(mode, got, rays, ss, tree):
+    if mode == "hitcount":
+        ref = np.array(trace_hitcounts_sph(rays, ss, tree))
+        assert np.array_equal(np.array(got), ref)
+        assert ref.sum() > 0
+    else:
+        ref = np.array(trace_cumulative_sph(rays, ss, tree))
+        np.testing.assert_allclose(np.array(got), ref, rtol=5e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("mode", ["hitcount", "cumulative"])
+def test_kernel_matches_engine(rng, mode, tile):
     ss, tree, _ = setup(rng)
     rays = plane_parallel_random_rays(
         jax.random.key(1), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
-    got, ovf = pallas_trace_sph(
-        rays, ss, tree, tile=64, max_chunks=64, mode="hitcount", interpret=True)
+    got, ovf = pallas_trace_sph(rays, ss, tile=tile, max_chunks=64,
+                                mode=mode, interpret=True)
     assert not bool(np.array(ovf).any())
-    ref = np.array(trace_hitcounts_sph(rays, ss, tree))
-    assert np.array_equal(np.array(got), ref)
-    assert ref.sum() > 0
+    assert got.dtype == (jnp.int32 if mode == "hitcount" else jnp.float32)
+    check(mode, got, rays, ss, tree)
 
 
-def test_pallas_cumulative_matches_engine(rng):
-    ss, tree, _ = setup(rng)
-    rays = plane_parallel_random_rays(
-        jax.random.key(2), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
-    got, ovf = pallas_trace_sph(
-        rays, ss, tree, tile=64, max_chunks=64, mode="cumulative", interpret=True)
-    assert not bool(np.array(ovf).any())
-    ref = np.array(trace_cumulative_sph(rays, ss, tree))
-    np.testing.assert_allclose(np.array(got), ref, rtol=5e-4, atol=1e-2)
-
-
-def test_pallas_isotropic_rays_with_sort(rng):
-    ss, tree, _ = setup(rng, n=2000)
-    rays = uniform_random_rays(jax.random.key(3), 128, (0.5, 0.5, 0.5), 2.0)
-    rays_s, order, inv = spatial_sort_rays(rays)
-    got, ovf = pallas_trace_sph(
-        rays_s, ss, tree, tile=32, max_chunks=64, mode="hitcount", interpret=True)
-    ref = np.array(trace_hitcounts_sph(rays_s, ss, tree))
-    # overflowed tiles (isotropic rays have huge tile AABBs) may undercount;
-    # require exactness wherever no overflow occurred.
-    ovf = np.array(ovf)
-    got = np.array(got)
-    tile_of = np.arange(128) // 32
-    okmask = ~ovf[tile_of]
-    assert np.array_equal(got[okmask], ref[okmask])
-    # and the inverse permutation restores original ray order
-    rays_round = np.array(rays_s.origins[inv])
-    np.testing.assert_allclose(rays_round, np.array(rays.origins))
-
-
-def test_streaming_variant_matches_engine(rng):
-    """Force the HBM-streaming (DMA) kernel by zeroing the VMEM-resident
-    budget; must match the engine exactly."""
+@pytest.mark.parametrize("mode", ["hitcount", "cumulative"])
+def test_ray_count_not_a_tile_multiple(rng, mode):
+    """Padding rays never hit and are cut from the result."""
     ss, tree, _ = setup(rng)
     rays = plane_parallel_random_rays(
         jax.random.key(4), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
-    got, ovf = pallas_trace_sph(
-        rays, ss, tree, tile=64, max_chunks=64, mode="hitcount",
-        interpret=True, vmem_resident_limit=0)
+    rays = jax.tree.map(lambda x: x[:200], rays)
+    got, ovf = pallas_trace_sph(rays, ss, tile=64, max_chunks=64, mode=mode,
+                                interpret=True)
+    assert got.shape == (200,) and ovf.shape == (4,)
+    check(mode, got, rays, ss, tree)
+
+
+def test_pad_rays_shape_and_never_hit():
+    rays = Rays(jnp.zeros((5, 3)), jnp.tile(jnp.asarray([[0.0, 0.0, 1.0]]), (5, 1)),
+                jnp.ones((5,)))
+    p = pad_rays(rays, 8)
+    assert p.n_rays == 8
+    assert np.all(np.asarray(p.lengths[5:]) == -1.0)
+    assert pad_rays(p, 8) is p
+
+
+def test_empty_segment_lists(rng):
+    """Tiles whose rays miss every particle have empty lists and zeros."""
+    ss, tree, _ = setup(rng, n=500)
+    rays = plane_parallel_random_rays(
+        jax.random.key(5), 8, 8, (5.0, 5.0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
+    got, ovf = pallas_trace_sph(rays, ss, tile=16, max_chunks=16,
+                                interpret=True)
     assert not bool(np.array(ovf).any())
-    ref = np.array(trace_hitcounts_sph(rays, ss, tree))
-    assert np.array_equal(np.array(got), ref)
+    assert np.all(np.asarray(got) == 0.0)
 
 
-def test_bitmask_variant_matches_engine(rng):
-    """The bitmask broadphase + set-bit kernel (the default resident route)
-    must match the engine exactly on hitcounts and to tolerance on
-    integrals, with no overflow possible."""
+def test_multi_slab_scene_and_overflow_flag(rng):
+    """A 20k-particle scene spans 157 slabs; every tile lists many of them.
+    A list capacity below that must raise the overflow flag."""
+    ss, tree, _ = setup(rng, n=20000)
+    rays = plane_parallel_random_rays(
+        jax.random.key(6), 8, 8, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
+    got, ovf = pallas_trace_sph(rays, ss, tile=16, max_chunks=160,
+                                mode="hitcount", interpret=True)
+    assert not bool(np.array(ovf).any())
+    check("hitcount", got, rays, ss, tree)
+    _, ovf_small = pallas_trace_sph(rays, ss, tile=16, max_chunks=4,
+                                    mode="hitcount", interpret=True)
+    assert bool(np.array(ovf_small).all())
+
+
+def test_isotropic_rays_with_sort(rng):
+    ss, tree, _ = setup(rng, n=2000)
+    rays = uniform_random_rays(jax.random.key(3), 128, (0.5, 0.5, 0.5), 2.0)
+    rays_s, order, inv = spatial_sort_rays(rays)
+    got, ovf = pallas_trace_sph(rays_s, ss, tile=32, max_chunks=64,
+                                mode="hitcount", interpret=True)
+    ref = np.array(trace_hitcounts_sph(rays_s, ss, tree))
+    # overflowed tiles (isotropic rays have huge tile AABBs) may undercount;
+    # require exactness wherever no overflow occurred.
+    okmask = ~np.array(ovf)[np.arange(128) // 32]
+    assert np.array_equal(np.array(got)[okmask], ref[okmask])
+    # and the inverse permutation restores original ray order
+    np.testing.assert_allclose(np.array(rays_s.origins[inv]),
+                               np.array(rays.origins))
+
+
+def test_precomputed_segments_match(rng):
+    """Lists supplied by the caller (the ring's hoisted broadphase) give
+    the same values as lists built inside the call."""
+    from grace_jax.trace.pallas_broadphase import dense_tile_segments
+
     ss, tree, _ = setup(rng)
     rays = plane_parallel_random_rays(
-        jax.random.key(7), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
-    got, ovf = pallas_trace_sph(
-        rays, ss, tree, tile=64, mode="hitcount", interpret=True,
-        broadphase="bitmask")
-    assert not bool(np.array(ovf).any())
-    ref = np.array(trace_hitcounts_sph(rays, ss, tree))
-    assert np.array_equal(np.array(got), ref)
-    got2, _ = pallas_trace_sph(
-        rays, ss, tree, tile=64, mode="cumulative", interpret=True,
-        broadphase="bitmask")
-    ref2 = np.array(trace_cumulative_sph(rays, ss, tree))
-    np.testing.assert_allclose(np.array(got2), ref2, rtol=5e-4, atol=1e-2)
+        jax.random.key(8), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
+    segs = dense_tile_segments(rays, ss, 32, 64)
+    a, _ = pallas_trace_sph(rays, ss, tile=32, max_chunks=64, interpret=True)
+    b, _ = pallas_trace_sph(rays, ss, tile=32, segments=segs, interpret=True)
+    assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_subtiled_variant_matches_engine(rng):
+@pytest.mark.parametrize("deg", [8, -12])
+def test_integral_deg_flavors_match_engine(rng, deg):
+    """The tunable Horner forms (lower-degree prefactor fits, and the
+    sqrt-free direct fit encoded as negative degrees) must stay inside the
+    physics-gate tolerance against the engine's exact-table path."""
     ss, tree, _ = setup(rng)
     rays = plane_parallel_random_rays(
-        jax.random.key(6), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
-    got, ovf = pallas_trace_sph(
-        rays, ss, tree, tile=32, max_chunks=64, mode="hitcount",
-        interpret=True, subtiles=4)
-    assert not bool(np.array(ovf).any())
-    ref = np.array(trace_hitcounts_sph(rays, ss, tree))
-    assert np.array_equal(np.array(got), ref)
+        jax.random.key(12), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
+    got, _ = pallas_trace_sph(rays, ss, tile=32, max_chunks=64,
+                              integral_deg=deg, interpret=True)
+    check("cumulative", got, rays, ss, tree)
 
 
-def test_quarter_variant_matches_engine(rng):
-    """The seg-32 (quarter-granularity) broadphase + slab-assembly kernel
-    (broadphase='quarter', the fastest general-trace route on hardware —
-    benchmarks/results/r4_hw_notes.md) must match the engine exactly on
-    hitcounts and to tolerance on integrals; exercises the dynamic-rotate
-    assembly and the group-of-4 zero-slab padding (n % 4 != 0 lists)."""
-    ss, tree, _ = setup(rng)
+def test_kernel_without_interpret_raises_on_cpu(rng):
+    """Off the GPU the kernel runs only when the caller asks for the
+    interpreter; it never falls back on its own."""
+    ss, _, _ = setup(rng, n=300)
     rays = plane_parallel_random_rays(
-        jax.random.key(9), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
-    got, ovf = pallas_trace_sph(
-        rays, ss, tree, tile=64, mode="hitcount", interpret=True,
-        broadphase="quarter")
-    assert not bool(np.array(ovf).any())
-    ref = np.array(trace_hitcounts_sph(rays, ss, tree))
-    assert np.array_equal(np.array(got), ref)
-    got2, _ = pallas_trace_sph(
-        rays, ss, tree, tile=64, mode="cumulative", interpret=True,
-        broadphase="quarter")
-    ref2 = np.array(trace_cumulative_sph(rays, ss, tree))
-    np.testing.assert_allclose(np.array(got2), ref2, rtol=5e-4, atol=1e-2)
-    # unroll tail paths (unroll > n_groups) and a non-default tile
-    got3, _ = pallas_trace_sph(
-        rays, ss, tree, tile=128, mode="hitcount", interpret=True,
-        broadphase="quarter", unroll=8)
-    assert np.array_equal(np.array(got3), ref)
-
-
-def test_qlist_variant_matches_engine(rng):
-    """broadphase='qlist' (seg-32 cull + XLA set-bit compaction feeding the
-    list-driven assembly kernel — zero in-kernel scalar decode) must match
-    the engine exactly on hitcounts and the quarter kernel exactly on
-    integrals (identical pair set and op order)."""
-    ss, tree, _ = setup(rng)
-    rays = plane_parallel_random_rays(
-        jax.random.key(21), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
-    got, ovf = pallas_trace_sph(
-        rays, ss, tree, tile=64, mode="hitcount", interpret=True,
-        broadphase="qlist")
-    assert not bool(np.array(ovf).any())
-    ref = np.array(trace_hitcounts_sph(rays, ss, tree))
-    assert np.array_equal(np.array(got), ref)
-    got_q, _ = pallas_trace_sph(
-        rays, ss, tree, tile=64, mode="cumulative", interpret=True,
-        broadphase="quarter")
-    got_l, _ = pallas_trace_sph(
-        rays, ss, tree, tile=64, mode="cumulative", interpret=True,
-        broadphase="qlist")
-    assert np.array_equal(np.array(got_l), np.array(got_q)), \
-        "qlist must bit-match the quarter kernel (same pairs, same order)"
-    # fine tiles + unroll tails + list overflow flag
-    got3, ovf3 = pallas_trace_sph(
-        rays, ss, tree, tile=32, mode="hitcount", interpret=True,
-        broadphase="qlist", unroll=4)
-    assert not bool(np.array(ovf3).any())
-    assert np.array_equal(np.array(got3), ref)
-    _, ovf_small = pallas_trace_sph(
-        rays, ss, tree, tile=64, max_chunks=4, mode="hitcount",
-        interpret=True, broadphase="qlist")
-    assert bool(np.array(ovf_small).any()), \
-        "a 4-entry list capacity must overflow on this scene"
+        jax.random.key(2), 8, 8, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
+    with pytest.raises(Exception, match="interpret"):
+        pallas_trace_sph(rays, ss, tile=16, max_chunks=16)
 
 
 def test_compact_mask_words_exhaustive(rng):
     """XLA set-bit compaction vs a numpy decode, random sparse + sign-bit
     words, including empty tiles and exact-capacity rows."""
-    from grace_tpu.trace.pallas_broadphase import compact_mask_words
+    from grace_jax.trace.pallas_broadphase import compact_mask_words
 
     T, W, max_q = 9, 70, 64
     words = np.zeros((T, W), np.int32)
@@ -185,7 +160,6 @@ def test_compact_mask_words_exhaustive(rng):
         qs = rng.choice(W * 32, size=nset, replace=False)
         for q in qs:
             words[t, q // 32] |= np.int32(np.uint32(1 << (q % 32)))
-    import jax.numpy as jnp
 
     ids, n_q, ovf = jax.jit(
         lambda w: compact_mask_words(w, max_q))(jnp.asarray(words))
@@ -199,39 +173,3 @@ def test_compact_mask_words_exhaustive(rng):
         assert n_q[t] == len(exp)
         assert np.array_equal(ids[t, :n_q[t]], exp)
         assert np.all(ids[t, n_q[t]:] == 0)
-
-
-def test_integral_deg_flavors_match_engine(rng):
-    """The tunable Horner forms (lower-degree prefactor fits, and the
-    sqrt-free direct fit encoded as negative degrees) must stay inside the
-    physics-gate tolerance against the engine's exact-table path."""
-    ss, tree, _ = setup(rng)
-    rays = plane_parallel_random_rays(
-        jax.random.key(12), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
-    ref = np.array(trace_cumulative_sph(rays, ss, tree))
-    for deg in (8, -12):
-        got, _ = pallas_trace_sph(
-            rays, ss, tree, tile=64, mode="cumulative", interpret=True,
-            broadphase="quarter", integral_deg=deg)
-        np.testing.assert_allclose(np.array(got), ref, rtol=5e-4, atol=1e-2)
-
-
-def test_quarter_streaming_matches_resident(rng):
-    """Forcing the HBM-streaming quarter variant (tiny vmem_resident_limit)
-    must reproduce the resident quarter kernel exactly — the seg-32 fast
-    path works at any scene size (exercises the group DMA pipeline and the
-    tail-padding lane zeroing)."""
-    ss, tree, _ = setup(rng)
-    rays = plane_parallel_random_rays(
-        jax.random.key(13), 16, 16, (0, 0, -2.0), (1, 0, 0), (0, 1, 0), 5.0)
-    res, _ = pallas_trace_sph(rays, ss, tree, tile=64, mode="hitcount",
-                              interpret=True, broadphase="quarter")
-    stm, _ = pallas_trace_sph(rays, ss, tree, tile=64, mode="hitcount",
-                              interpret=True, broadphase="quarter",
-                              vmem_resident_limit=1024)
-    assert np.array_equal(np.array(res), np.array(stm))
-    res2, _ = pallas_trace_sph(rays, ss, tree, tile=64, interpret=True,
-                               broadphase="quarter")
-    stm2, _ = pallas_trace_sph(rays, ss, tree, tile=64, interpret=True,
-                               broadphase="quarter", vmem_resident_limit=1024)
-    np.testing.assert_allclose(np.array(stm2), np.array(res2), rtol=2e-6)

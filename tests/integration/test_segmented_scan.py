@@ -5,7 +5,7 @@ thrust::exclusive_scan_by_key on random CSR segments incl. empty ones)."""
 import numpy as np
 import jax.numpy as jnp
 
-from grace_tpu.ops.segops import (
+from grace_jax.ops.segops import (
     exclusive_segmented_scan,
     offsets_to_segments,
     sort_by_distance,

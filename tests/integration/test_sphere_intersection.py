@@ -9,7 +9,7 @@ from fractions import Fraction
 import numpy as np
 import jax.numpy as jnp
 
-from grace_tpu.ops.intersect import sphere_hit
+from grace_jax.ops.intersect import sphere_hit
 
 BOUNDARY_TOL = 1e-8  # ref sphere_intersection.cu:47
 

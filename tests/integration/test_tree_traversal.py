@@ -6,10 +6,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from grace_tpu.build.sph import build_sph_tree
-from grace_tpu.core.types import Rays, make_spheres
-from grace_tpu.rays.gen import uniform_random_rays
-from grace_tpu.trace.sph import trace_hitcounts_sph
+from grace_jax.build.sph import build_sph_tree
+from grace_jax.core.types import Rays, make_spheres
+from grace_jax.rays.gen import uniform_random_rays
+from grace_jax.trace.sph import trace_hitcounts_sph
 
 
 def brute_force_counts(o, d, length, spheres):

@@ -5,8 +5,8 @@ vs brute force, and an end-to-end shaded render."""
 import numpy as np
 import jax.numpy as jnp
 
-from grace_tpu.core.types import Rays
-from grace_tpu.trace.pallas_tri import clip_rays_to_aabb
+from grace_jax.core.types import Rays
+from grace_jax.models.triangle import clip_rays_to_aabb
 
 
 def test_clip_rays_to_aabb_edges():
@@ -32,8 +32,8 @@ def test_clip_rays_to_aabb_edges():
 import jax
 import jax.numpy as jnp
 
-from grace_tpu.core.types import Rays
-from grace_tpu.models.triangle import (
+from grace_jax.core.types import Rays
+from grace_jax.models.triangle import (
     build_triangle_tree,
     intersect_triangle,
     render_triangles,
@@ -102,37 +102,3 @@ def test_render_produces_shaded_image(rng):
     assert (img > 0).sum() > 50          # object visible
     assert img.max() <= 1.0 + 1e-5
     assert len(np.unique(np.round(img, 3))) > 10  # actual shading variation
-
-
-def test_pallas_triangle_matches_engine(rng):
-    from grace_tpu.trace.pallas_tri import pallas_trace_tri
-
-    tris = random_mesh(rng, n=250)
-    sorted_tris, tree, _ = build_triangle_tree(jnp.asarray(tris), max_per_leaf=8)
-    r = 128
-    d = rng.standard_normal((r, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = Rays(
-        jnp.asarray((rng.random((r, 3)) * 0.2 - 0.5).astype(np.float32)),
-        jnp.asarray(d),
-        jnp.full((r,), 5.0, jnp.float32),
-    )
-    ref = trace_closest_hit(rays, sorted_tris, tree)
-    t_p, id_p, ovf = pallas_trace_tri(rays, sorted_tris, tile=64, max_chunks=16,
-                                      interpret=True)
-    assert not bool(np.array(ovf).any())
-    np.testing.assert_allclose(
-        np.where(np.isfinite(np.array(t_p)), np.array(t_p), 1e30),
-        np.where(np.isfinite(np.array(ref.t)), np.array(ref.t), 1e30), rtol=1e-5)
-    assert np.array_equal(np.array(id_p), np.array(ref.tri))
-    occ_p, _, _ = pallas_trace_tri(rays, sorted_tris, tile=64, max_chunks=16,
-                                   mode="any", interpret=True)
-    assert np.array_equal(np.array(occ_p), np.array(trace_any_hit(rays, sorted_tris, tree)))
-
-
-def test_render_pallas_engine_matches_xla(rng):
-    tris = random_mesh(rng, n=120)
-    img_x = np.array(render_triangles(tris, resolution=48, engine="xla"))
-    img_p = np.array(render_triangles(tris, resolution=48, engine="pallas",
-                                      interpret=True))
-    np.testing.assert_allclose(img_p, img_x, atol=1e-5)

@@ -4,12 +4,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from grace_tpu.build.sph import build_sph_tree
-from grace_tpu.core.types import make_spheres
-from grace_tpu.io.checkpoint import load_scene, save_scene
-from grace_tpu.rays.gen import uniform_random_rays
-from grace_tpu.trace.sph import trace_hitcounts_sph
-from grace_tpu.utils.timers import Timer
+from grace_jax.build.sph import build_sph_tree
+from grace_jax.core.types import make_spheres
+from grace_jax.io.checkpoint import load_scene, save_scene
+from grace_jax.rays.gen import uniform_random_rays
+from grace_jax.trace.sph import trace_hitcounts_sph
+from grace_jax.utils.timers import Timer
 
 
 def test_checkpoint_roundtrip(tmp_path, rng):

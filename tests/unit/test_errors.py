@@ -1,4 +1,4 @@
-"""GRACE_TPU_DEBUG invariant wiring (analog of ref GRACE_DEBUG asserts,
+"""GRACE_JAX_DEBUG invariant wiring (analog of ref GRACE_DEBUG asserts,
 error.h:10-36): healthy inputs stay silent, violated invariants report.
 """
 
@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from grace_tpu.build.sph import build_sph_tree
-from grace_tpu.core.errors import GraceError, check_overflow, require
-from grace_tpu.core.types import Rays, make_spheres
-from grace_tpu.trace.sph import trace_hitcounts_sph
+from grace_jax.build.sph import build_sph_tree
+from grace_jax.core.errors import GraceError, check_overflow, require
+from grace_jax.core.types import Rays, make_spheres
+from grace_jax.trace.sph import trace_hitcounts_sph
 
 
 def _scene(rng, n=200):
@@ -37,20 +37,20 @@ def test_check_overflow():
 
 
 def test_debug_asserts_silent_on_healthy_scene(rng, monkeypatch, capfd):
-    monkeypatch.setenv("GRACE_TPU_DEBUG", "1")
+    monkeypatch.setenv("GRACE_JAX_DEBUG", "1")
     spheres, rays = _scene(rng)
     ss, tree, _ = build_sph_tree(spheres, 8)
     counts = trace_hitcounts_sph(rays, ss, tree, stack_size=64)
     jax.block_until_ready(counts)
     out = capfd.readouterr()
-    assert "GRACE_TPU_ASSERT" not in out.out + out.err
+    assert "GRACE_JAX_ASSERT" not in out.out + out.err
 
 
 def test_engine_stack_overflow_reports_under_debug(rng, monkeypatch, capfd):
     # Co-located primitives degenerate the tree; a tiny stack must overflow
-    # and, under GRACE_TPU_DEBUG, say so (ref GRACE_ASSERT
+    # and, under GRACE_JAX_DEBUG, say so (ref GRACE_ASSERT
     # bintree_trace.cuh:164) instead of only silently truncating.
-    monkeypatch.setenv("GRACE_TPU_DEBUG", "1")
+    monkeypatch.setenv("GRACE_JAX_DEBUG", "1")
     spheres = make_spheres(np.full((256, 3), 0.5, np.float32),
                            np.full((256,), 0.4, np.float32))
     _, rays = _scene(rng)
@@ -58,7 +58,7 @@ def test_engine_stack_overflow_reports_under_debug(rng, monkeypatch, capfd):
     counts = trace_hitcounts_sph(rays, ss, tree, stack_size=4)
     jax.block_until_ready(counts)
     out = capfd.readouterr()
-    assert "GRACE_TPU_ASSERT" in out.out + out.err
+    assert "GRACE_JAX_ASSERT" in out.out + out.err
     assert "stack overflow" in out.out + out.err
 
 

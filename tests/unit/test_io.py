@@ -5,10 +5,10 @@ helper/images.hpp usage)."""
 import numpy as np
 import pytest
 
-from grace_tpu.io import native
-from grace_tpu.io.gadget import _np_read, read_gadget_gas, write_gadget_gas
-from grace_tpu.io.images import to_colormap, write_bmp
-from grace_tpu.io.ply import _py_read, read_ply
+from grace_jax.io import native
+from grace_jax.io.gadget import _np_read, read_gadget_gas, write_gadget_gas
+from grace_jax.io.images import to_colormap, write_bmp
+from grace_jax.io.ply import _py_read, read_ply
 
 
 def test_gadget_roundtrip(tmp_path, rng):
@@ -91,7 +91,7 @@ def test_bmp_writer(tmp_path, rng):
 
 
 def test_gadget_sharded_read(tmp_path, rng):
-    from grace_tpu.io.gadget import read_gadget_gas_shard
+    from grace_jax.io.gadget import read_gadget_gas_shard
 
     n = 1003  # deliberately not divisible
     xyzh = np.concatenate(

@@ -6,7 +6,7 @@ consistency of the closed form, and normalization."""
 import numpy as np
 import jax.numpy as jnp
 
-from grace_tpu.sph.kernel_integrals import (
+from grace_jax.sph.kernel_integrals import (
     DENSE_KERNEL_INTEGRAL_TABLE,
     KERNEL_INTEGRAL_TABLE,
     N_TABLE,
@@ -64,7 +64,7 @@ def test_dense_table_monotone_decreasing():
 def test_unified_horner_matches_quadrature():
     """The select-Horner form used by the hot Pallas kernels: <= 6e-5 abs
     error over the support, exactly 0 outside, no NaN/inf for huge u."""
-    from grace_tpu.sph.kernel_integrals import cubic_spline_line_integral_horner
+    from grace_jax.sph.kernel_integrals import cubic_spline_line_integral_horner
 
     b = np.linspace(0.0, 1.0, 4001)
     quad = make_kernel_integral_table(4001)
@@ -80,7 +80,7 @@ def test_single_horner_matches_quadrature():
     """The single-piece Horner form (the one the hot Pallas kernels use):
     <= 5e-5 abs error over the support (deg-14 weighted fit, 20x inside the
     5e-4 physics gate), exactly 0 outside, no NaN/inf for huge u."""
-    from grace_tpu.sph.kernel_integrals import cubic_spline_line_integral_horner1
+    from grace_jax.sph.kernel_integrals import cubic_spline_line_integral_horner1
 
     b = np.linspace(0.0, 1.0, 4001)
     quad = make_kernel_integral_table(4001)
@@ -96,12 +96,12 @@ def test_coefficient_cache_matches_fresh_derivation():
     """The committed coefficient cache (_horner_cache.npz) must be exactly
     what the derivation code produces — the constants stay derived, the
     cache is only an import-time accelerator."""
-    from grace_tpu.sph.kernel_integrals import (
+    from grace_jax.sph.kernel_integrals import (
         _fit_single_horner, direct_coeffs, horner1_coeffs)
 
     np.testing.assert_array_equal(horner1_coeffs(14), _fit_single_horner(14))
     # the direct (sqrt-free) fit: re-derive inline
-    from grace_tpu.sph.kernel_integrals import _line_integral_quadrature
+    from grace_jax.sph.kernel_integrals import _line_integral_quadrature
     u = np.concatenate([np.linspace(0.0, 1.0, 6001),
                         1.0 - np.geomspace(1e-7, 0.05, 500)])
     u = np.unique(u)
@@ -119,7 +119,7 @@ def test_direct_raw_matches_masked_form():
     simply unmasked outside it."""
     import jax.numpy as jnp
 
-    from grace_tpu.sph.kernel_integrals import (
+    from grace_jax.sph.kernel_integrals import (
         cubic_spline_line_integral_direct_raw,
         cubic_spline_line_integral_horner1,
     )

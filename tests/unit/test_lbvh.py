@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from grace_tpu.build.lbvh import build_lbvh, cartesian_tree_ranges, coalesce_leaves
-from grace_tpu.build.sph import build_sph_tree
-from grace_tpu.core.types import make_spheres
+from grace_jax.build.lbvh import build_lbvh, cartesian_tree_ranges, coalesce_leaves
+from grace_jax.build.sph import build_sph_tree
+from grace_jax.core.types import make_spheres
 from tests.helper.reference_builder import build_reference_tree, climb_ranges, emit_big_leaves
 
 
@@ -124,8 +124,8 @@ def test_tree_invariants_random_spheres(rng):
 def test_build_with_63bit_keys_and_xor_deltas(rng):
     """End-to-end 63-bit key path: lexicographic (hi, lo) sort + compressed
     XOR deltas must produce a valid tree with exact hitcounts."""
-    from grace_tpu.core.types import Rays
-    from grace_tpu.trace.sph import trace_hitcounts_sph
+    from grace_jax.core.types import Rays
+    from grace_jax.trace.sph import trace_hitcounts_sph
 
     n = 3000
     spheres = make_spheres(rng.random((n, 3)).astype(np.float32),

@@ -5,7 +5,7 @@ against an independent host implementation)."""
 import numpy as np
 import jax.numpy as jnp
 
-from grace_tpu.ops import morton
+from grace_jax.ops import morton
 
 
 def spread_py(x: int, nbits: int) -> int:

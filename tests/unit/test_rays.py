@@ -7,8 +7,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from grace_tpu.core.types import Octants, RaySortType
-from grace_tpu.rays.gen import (
+from grace_jax.core.types import Octants, RaySortType
+from grace_jax.rays.gen import (
     one_to_many_rays,
     orthographic_projection_rays,
     pinhole_camera_rays,
@@ -16,7 +16,7 @@ from grace_tpu.rays.gen import (
     uniform_random_rays,
     uniform_random_rays_single_octant,
 )
-from grace_tpu.rays.healpix import healpix_rays, pix2vec_nest
+from grace_jax.rays.healpix import healpix_rays, pix2vec_nest
 
 
 def test_uniform_rays_normalized_and_sorted():

@@ -45,7 +45,7 @@ def segment_overlap_stats(sorted_spheres):
     (sum over segments of the fractional cross-section area). Lower is more
     selective; a perfectly space-filling Morton order approaches
     n_segs^(1/3)-ish scaling."""
-    from grace_tpu.trace.pallas_broadphase import segment_aabbs
+    from grace_jax.trace.pallas_broadphase import segment_aabbs
 
     seg_min, seg_max = map(np.asarray, segment_aabbs(sorted_spheres))
     scene_min, scene_max = seg_min.min(0), seg_max.max(0)
@@ -66,8 +66,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from grace_tpu.build.sph import build_sph_tree
-    from grace_tpu.core.types import make_spheres
+    from grace_jax.build.sph import build_sph_tree
+    from grace_jax.core.types import make_spheres
 
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     as_json = "--json" in sys.argv
@@ -77,7 +77,8 @@ def main():
 
     rng = np.random.default_rng(0)
     if bench_scene:
-        from bench import MAX_PER_LEAF, N_PARTICLES, make_clustered_particles
+        from bench import MAX_PER_LEAF, N_PARTICLES
+        from grace_jax.io.synthetic import make_clustered_particles
 
         n, mpl = N_PARTICLES, MAX_PER_LEAF
         rng = np.random.default_rng(2026)
